@@ -1,6 +1,6 @@
-"""kmers_tpu: a TPU-native bit-packed 2-bit DNA k-mer engine.
+"""kmers_tpu: a bit-packed 2-bit DNA k-mer engine in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities (and bit-level
+A from-scratch JAX/XLA framework with the capabilities (and bit-level
 semantics) of the Rust crate COMBINE-lab/kmers, plus a sharded
 counting/minimizer pipeline the reference does not have.
 
@@ -8,7 +8,6 @@ Layers (bottom-up):
   * ``kmers_tpu.core``     -- KmerSpec config; u64-as-2xu32 lane arithmetic.
   * ``kmers_tpu.ops``      -- batched jnp ops: encoding, k-mer windows,
                               canonical, hashing, minimizers, packed storage.
-  * ``kmers_tpu.kernels``  -- Pallas TPU kernels for the hot paths.
   * ``kmers_tpu.parallel`` -- mesh setup, hash-routed all_to_all, sharded
                               counting (new scope vs the reference).
   * ``kmers_tpu.oracle``   -- scalar NumPy oracle: the normative model of the

@@ -1,43 +1,16 @@
 """Static configuration resolved before jit.
 
 The reference fixes k/word-width/encoding at compile time via const generics
-and cargo features (src/kmer.rs:12-14, Cargo.toml:15-16).  The TPU analog is
+and cargo features (src/kmer.rs:12-14, Cargo.toml:15-16).  The analog here is
 this frozen dataclass: everything that determines shapes, dtypes, or shift
-amounts lives here, so every jitted function specializes on it.
-
-This module is also the single source of truth for the framework's
-environment knobs (the "cargo feature" analog): parallel.count consults
-the env_* helpers below, and ``KmerSpec.from_env`` freezes their values
-into a spec so a pipeline's configuration is one immutable object
-(consumed by parallel.pipeline.count_reads*, parallel.stream's counters,
-and the CLI).  The knobs are documented in ``python -m kmers_tpu count
---help``.
+amounts lives here, so every jitted function specializes on it.  It is the
+one config object consumed by parallel.pipeline.count_reads*,
+parallel.stream's counters, and the CLI.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
-
-
-def env_seg_lanes() -> int:
-    """KMERS_TPU_SEG_LANES (default 64): segment size of the VMEM
-    segment-local count kernel -- smaller segments cost fewer bitonic
-    stages but more cross-segment duplicate runs (free at merge time)."""
-    return int(os.environ.get("KMERS_TPU_SEG_LANES", 1 << 6))
-
-
-def env_no_segment() -> bool:
-    """KMERS_TPU_NO_SEGMENT: disable the segment-local count kernel
-    (globally sorted run-length tables instead)."""
-    return bool(os.environ.get("KMERS_TPU_NO_SEGMENT"))
-
-
-def env_bitonic() -> bool:
-    """KMERS_TPU_BITONIC: opt into the Pallas bitonic sort (measured
-    slower than XLA's lax.sort as of round 3; kept for measurement --
-    see kernels/sort.py)."""
-    return bool(os.environ.get("KMERS_TPU_BITONIC"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,31 +25,17 @@ class KmerSpec:
       w: minimizer width (None if minimizers unused).
       seed: seed for the default mixer hash (routing owners, minimizer
          selection order).
-      seg_lanes / segment_kernel / bitonic_sort: frozen values of the
-         three environment knobs (see from_env / the env_* helpers).
     """
 
     k: int
     w: int | None = None
     seed: int = 0
-    seg_lanes: int = 1 << 6
-    segment_kernel: bool = True
-    bitonic_sort: bool = False
 
     def __post_init__(self):
         if not (1 <= self.k <= 64):
             raise ValueError(f"k={self.k} out of supported range [1, 64]")
         if self.w is not None and not (1 <= self.w <= min(self.k, 32)):
             raise ValueError(f"w={self.w} invalid for k={self.k}")
-
-    @classmethod
-    def from_env(cls, k: int, w: int | None = None,
-                 seed: int = 0) -> "KmerSpec":
-        """Spec with the three KMERS_TPU_* env knobs frozen in."""
-        return cls(k=k, w=w, seed=seed,
-                   seg_lanes=env_seg_lanes(),
-                   segment_kernel=not env_no_segment(),
-                   bitonic_sort=env_bitonic())
 
     @property
     def wide(self) -> bool:

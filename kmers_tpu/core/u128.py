@@ -5,7 +5,7 @@ reaches long k through const-generic [P; B] arrays (src/kmer.rs:12-14);
 kmers_tpu represents the same 128-bit LSB-first 2-bit layout as
 ``value = hi * 2**64 + lo`` with hi/lo each a core.u64.U64.
 
-All ops mirror core.u64: elementwise, static shift amounts, Pallas-safe.
+All ops mirror core.u64: elementwise, static shift amounts.
 """
 
 from __future__ import annotations

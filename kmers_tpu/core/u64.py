@@ -1,11 +1,10 @@
 """u64 emulation as (hi, lo) uint32 lane pairs.
 
-TPU vector units are 32-bit; Pallas/Mosaic kernels do not support 64-bit
-integers, and XLA's own u64 emulation costs the same ops with less fusion
-control.  So the whole framework represents a packed k-mer word
-``w = hi * 2**32 + lo`` as a pair of uint32 arrays.  Every op here is
-elementwise, broadcastable, and works identically under jit, inside Pallas
-kernels, and on CPU.
+The framework represents a packed k-mer word ``w = hi * 2**32 + lo`` as a
+pair of uint32 arrays: it runs without JAX's x64 mode, and every op here is
+elementwise, broadcastable, and works identically under jit on any backend.
+(The layout was chosen for an accelerator with 32-bit vector units; whether
+the counting layer should key on one native u64 on the GPU is ROADMAP C5.)
 
 Shift amounts are **static Python ints** -- k is a compile-time constant in
 this framework (KmerSpec), so all shifts resolve at trace time to plain lane
@@ -247,8 +246,7 @@ def mix32_order(a: U64, seed: int = 0) -> U64:
     w <= 16 this is a bijection of the w-mer word (mix32 composes
     invertible xor-shifts and odd multiplies), and for w > 16 the
     leftmost-tie rule resolves the rare collisions.  Halves the compare
-    planes in the minimizer window scan (the measured VPU bottleneck,
-    BASELINE.md round 4)."""
+    planes in the minimizer window scan."""
     s_lo = u32(seed & U32_MASK)
     return U64(jnp.zeros_like(a.lo),
                _mix32(a.lo ^ _mix32(a.hi ^ s_lo)))

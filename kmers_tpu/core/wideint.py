@@ -5,7 +5,7 @@ word array with LSB-first 2-bit bases is exactly a contiguous bitstring of
 B*P bits, so the device representation is width-agnostic: ``n32 = B*P/32``
 (or 1 for sub-u32 words) uint32 lanes, lane j holding bits [32j, 32j+32).
 
-All shift amounts static; everything elementwise and Pallas-safe.  The
+All shift amounts static; everything elementwise.  The
 u64/u128 modules remain the hot-path specializations; this module trades a
 little speed for full generality across u8/u16/u32/u64/u128 parity.
 """

@@ -26,23 +26,43 @@ _NATIVE_DIR = os.path.abspath(
 _SO_PATH = os.path.join(_NATIVE_DIR, "libfastx.so")
 
 _lib = None
+_build_error: Optional[str] = None
 
 PAD = ord("N")
 
 
+def _build_native() -> None:
+    """Build libfastx.so from native/fastx.cpp.  The library is linked
+    under a temporary name inside native/ and renamed into place, so
+    processes that build at once (test workers) never load a half-written
+    file: rename is atomic within one directory."""
+    tmp_name = f".libfastx.{os.getpid()}.so"
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR, f"TARGET={tmp_name}"],
+                       check=True, capture_output=True, text=True,
+                       timeout=300)
+        os.replace(os.path.join(_NATIVE_DIR, tmp_name), _SO_PATH)
+    finally:
+        try:
+            os.unlink(os.path.join(_NATIVE_DIR, tmp_name))
+        except FileNotFoundError:
+            pass
+
+
 def _load_native() -> Optional[ctypes.CDLL]:
-    global _lib
-    if _lib is not None:
+    global _lib, _build_error
+    if _lib is not None or _build_error is not None:
         return _lib
     if not os.path.exists(_SO_PATH):
         try:
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
+            _build_native()
+        except (OSError, subprocess.SubprocessError) as e:
+            _build_error = getattr(e, "stderr", None) or repr(e)
             return None
     try:
         lib = ctypes.CDLL(_SO_PATH)
-    except OSError:
+    except OSError as e:
+        _build_error = repr(e)
         return None
     lib.fastx_open.restype = ctypes.c_void_p
     lib.fastx_open.argtypes = [ctypes.c_char_p]
@@ -74,7 +94,15 @@ def _load_native() -> Optional[ctypes.CDLL]:
 
 
 def native_available() -> bool:
+    """Whether the native parser is loaded, building it on first use.
+    When it is not, ingest falls back to the pure-Python parser and
+    native_build_error() says why."""
     return _load_native() is not None
+
+
+def native_build_error() -> Optional[str]:
+    """The compiler's error output if building libfastx.so failed."""
+    return _build_error
 
 
 def _open_maybe_gz(path: str):
@@ -288,7 +316,7 @@ def prefetch(it: Iterator, depth: int = 512) -> Iterator:
 
     depth (default 512 batches) bounds the look-ahead: deep enough to
     decouple device uploads from parse wakeups (a 1-deep queue serialized
-    the round-3 CLI at ~0.7 s/batch over the high-latency relay), but
+    the CLI on parse/upload hand-offs), but
     constant-memory for arbitrarily large files instead of O(packed file)
     -- an unbounded queue made host memory scale with the input and, when
     the consumer aborted mid-iteration (the auto-restart loop), left an

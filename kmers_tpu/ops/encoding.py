@@ -1,13 +1,13 @@
-"""Batched ASCII <-> 2-bit base codecs (jnp, jit-able, Pallas-safe).
+"""Batched ASCII <-> 2-bit base codecs (jnp, jit-able).
 
-TPU-first replacement for the reference's scalar per-base loops:
+Batched replacement for the reference's scalar per-base loops:
   * naive_impl table A=0,C=1,G=2,T=3 (src/naive_impl/mod.rs:19-50) -- the
     normative order used by canonical/hash/minimizer paths.
   * the internal/Xor10 order A=0,C=1,T=2,G=3 = (ascii >> 1) & 3
     (src/encoding/naive.rs:14-16, src/encoding/xor10.rs:17-22).
   * the 24 Naive permutation encodings (src/encoding/naive.rs:49-74).
 
-Instead of a 256-entry lookup table (gather: slow on the VPU) we use pure
+Instead of a 256-entry lookup table (a gather) we use pure
 lane arithmetic:
 
   internal = (c >> 1) & 3        # A=0, C=1, T=2, G=3 (works upper+lower)

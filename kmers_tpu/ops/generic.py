@@ -1,4 +1,4 @@
-"""Batched generic k-mer layer: the TPU analog of ``Kmer<P, const K, B>``
+"""Batched generic k-mer layer: the device analog of ``Kmer<P, const K, B>``
 (src/kmer.rs:12-14) over any word width P in {u8,u16,u32,u64,u128} and any
 of the 24 Naive permutation encodings or Xor10 (src/encoding/).
 
@@ -123,8 +123,8 @@ def encode_windows(spec: GenericSpec, ascii_u8: jnp.ndarray):
     per-kmer layout (encode on [N, k] slices) re-reads every base k
     times; here each base is encoded ONCE and windows are assembled from
     the shared 16-base log-doubling pack (ops.kmer.pack_u32_words), the
-    same trick the fused naive_impl window kernel uses
-    (kernels/window.py).  Bit-identical to per-window `encode`
+    same trick the naive_impl window path uses (ops.kmer).  Bit-identical
+    to per-window `encode`
     (reference construct loop, benches/simple_benchmark.rs:14-34) at
     valid positions; lanes at p > L-k are garbage (mask them).
     """

@@ -40,21 +40,19 @@ def mix_hash_fn(seed: int = 0) -> Callable[[U64], U64]:
 
 def mix32_hash_fn(seed: int = 0) -> Callable[[U64], U64]:
     """32-bit minimizer-selection order (hi = 0): see core.u64.mix32_order.
-    The fast compare key for the minimizer kernel's window scan."""
+    A cheaper compare key for the minimizer window scan."""
     return lambda w: u.mix32_order(w, seed)
 
 
 def mix16_hash_fn(seed: int = 0) -> Callable[[U64], U64]:
     """16-bit minimizer-selection order (top half of mix32_order, hi = 0).
 
-    The round-5 minimizer-kernel order: 16 order bits leave room to PACK
-    the window position into the same uint32 compare plane
-    ((order16 << 12) | pos), so the VPU-bound vHGW scan carries ONE
-    compare+select plane fewer.  A selection order may collide (any fixed
-    order is a valid minimizer scheme; the reference takes an arbitrary
-    BuildHasher, kmer.rs:170-192); leftmost-tie resolves collisions
-    deterministically, identically in this jnp form and in the packed
-    kernel (where the in-key position IS the tie-break)."""
+    The super-k-mer partition's selection order: 16 order bits leave
+    room to PACK the window position into the same uint32 compare plane
+    ((order16 << 12) | pos), so a window scan carries one compare+select
+    plane fewer.  A selection order may collide (any fixed order is a
+    valid minimizer scheme; the reference takes an arbitrary BuildHasher,
+    kmer.rs:170-192); leftmost-tie resolves collisions deterministically."""
     import jax.numpy as jnp
 
     def fn(w: U64) -> U64:

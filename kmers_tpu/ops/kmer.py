@@ -1,4 +1,4 @@
-"""Batched k-mer window ops: the TPU-native heart of the framework.
+"""Batched k-mer window ops: the device-side heart of the framework.
 
 Where the reference builds one k-mer at a time with a scalar loop
 (naive_impl/kmer.rs:234-251) or rolls a window base-by-base

@@ -2,7 +2,7 @@
 src/naive_impl/seq_vector/minimizers.rs).
 
 The reference streams a monotone deque -- amortized O(1) per k-mer but
-inherently sequential.  The TPU design computes, for every k-mer i of a
+inherently sequential.  The batched design computes, for every k-mer i of a
 sequence, the leftmost w-mer with minimal hash among positions
 [i, i + k - w]: a static unrolled scan of k-w+1 shifted hash arrays with
 strict-< updates.  Output is element-wise identical to the deque

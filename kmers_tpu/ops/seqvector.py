@@ -30,8 +30,8 @@ from . import encoding
 
 def pack_ascii_to_words(ascii_u8: np.ndarray) -> np.ndarray:
     """Host-side pack: ASCII bytes -> uint32 words, 16 bases per word,
-    LSB-first.  (The Pallas pack kernel is the device path; this is the
-    loader/compat path.)"""
+    LSB-first.  (ops.kmer packs on the device; this is the loader/compat
+    path.)"""
     arr = np.asarray(ascii_u8, dtype=np.uint8)
     n = len(arr)
     internal = (arr.astype(np.uint32) >> 1) & 3

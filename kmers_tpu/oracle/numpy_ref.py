@@ -133,8 +133,8 @@ def mix_hash(word: int, seed: int = 0) -> int:
     The reference's default BuildHasher is Rust's RandomState (SipHash with a
     random key) -- not a stable cross-language target; the *contract* is only
     that the hash is a function of the raw u64 word (hash.rs:4-8).  We define
-    a stable, seedable mixer built from 32-bit multiplies so it runs at full
-    VPU rate on TPU (no 64-bit multiply emulation).  Oracle and device paths
+    a stable, seedable mixer built from 32-bit multiplies (no 64-bit
+    multiply emulation on the uint32-pair layout).  Oracle and device paths
     are bit-identical.
     """
     lo = word & 0xFFFFFFFF
@@ -846,6 +846,18 @@ def canonical_wide(w: int, k: int) -> int:
     return min(w, reverse_complement_wide(w, k))
 
 
+def canonical_windows_wide(seq: bytes, k: int
+                           ) -> Iterator[Tuple[int, int, int]]:
+    """(pos, fw, canonical) of every window of `seq` free of invalid
+    bases, for any 1 <= k <= 64 -- the N-skipping iterator's output in the
+    128-bit model (exact at k = 32 too: no MASK_TABLE quirk)."""
+    for p in range(len(seq) - k + 1):
+        window = seq[p:p + k]
+        if all(c in _ENCODE for c in window):
+            fw = word_from_bytes_wide(window)
+            yield p, fw, canonical_wide(fw, k)
+
+
 def append_base_wide(data: int, b: int, k: int):
     """Rolling append (returns new word, evicted low base)."""
     evicted = data & 3
@@ -864,3 +876,153 @@ def mix_hash_wide(w: int, seed: int = 0) -> int:
     lo64 = w & MASK64
     hi64 = (w >> 64) & MASK64
     return mix_hash(lo64 ^ mix_hash(hi64, seed ^ 0xA5A5A5A5), seed)
+
+
+# ---------------------------------------------------------------------------
+# Vectorized exact counting of a whole FASTQ file: the plain reference the
+# device counter is compared with at full scale.  Same semantics as the
+# scalar model above (N-skipping windows, canonical = numeric min of the
+# 2k-bit fw/rc words, each record counted on its own), written with NumPy
+# only -- no JAX, no kmers_tpu.io -- and in chunks of reads so host memory
+# stays at a few GB for millions of reads.
+# ---------------------------------------------------------------------------
+
+import gzip  # noqa: E402
+import itertools  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+_BAD_CODE = 4
+_CODE_LUT = np.full(256, _BAD_CODE, dtype=np.uint8)
+for _ch, _code in _ENCODE.items():
+    _CODE_LUT[_ch] = _code
+
+
+def fastq_sequence_chunks(path: str, chunk_reads: int = 100_000,
+                          max_reads: Optional[int] = None
+                          ) -> Iterator[List[bytes]]:
+    """Sequences of a 4-line-record FASTQ file (gzip or plain), in lists
+    of up to `chunk_reads`, stopping after `max_reads` if given."""
+    with open(path, "rb") as probe:
+        gz = probe.read(2) == b"\x1f\x8b"
+    opener = gzip.open if gz else open
+    left = max_reads
+    with opener(path, "rb") as f:
+        while left is None or left > 0:
+            n = chunk_reads if left is None else min(chunk_reads, left)
+            lines = list(itertools.islice(f, 4 * n))
+            if not lines:
+                return
+            if len(lines) % 4 or not all(
+                    h.startswith(b"@") and p.startswith(b"+")
+                    for h, p in zip(lines[0::4], lines[2::4])):
+                raise ValueError(f"{path}: not 4-line FASTQ records")
+            seqs = [s.rstrip(b"\r\n") for s in lines[1::4]]
+            if left is not None:
+                left -= len(seqs)
+            yield seqs
+
+
+def _window_words_np(c: np.ndarray, m: int, offset: int,
+                     w: int) -> np.ndarray:
+    """uint64 words of the m <= 32 bases starting at offset + j, for
+    window starts j < w, first base least significant.  Log-doubling:
+    words of 2s bases are two words of s bases, so m costs O(log m)
+    array passes instead of m."""
+    pows = {1: c}
+    s = 1
+    while 2 * s <= m:
+        p = pows[s]
+        pows[2 * s] = p[:, :-s] | (p[:, s:] << np.uint64(2 * s))
+        s *= 2
+    acc, done = None, 0
+    while s:
+        if m & s:
+            piece = pows[s][:, offset + done:offset + done + w]
+            piece = piece << np.uint64(2 * done)
+            acc = piece if acc is None else acc | piece
+            done += s
+        s //= 2
+    return acc
+
+
+def canonical_kmers_np(codes: np.ndarray, k: int):
+    """All windows of equal-length reads at once.
+
+    codes: [n, L] uint8 base codes (A=0, C=1, G=2, T=3; anything else 4).
+    Returns (planes, valid): planes is (canonical,) uint64 [n, L-k+1] for
+    k <= 32, or (hi, lo) uint64 planes of the 128-bit word for k > 32;
+    valid marks windows without an invalid base."""
+    n, length = codes.shape
+    w = length - k + 1
+    c = (codes & 3).astype(np.uint64)
+    # the reverse complement of window j is the forward word, at window
+    # L-k-j, of the complemented read read backwards
+    rev = np.ascontiguousarray((np.uint64(3) - c)[:, ::-1])
+
+    def words(x):
+        if k <= 32:
+            return [_window_words_np(x, k, 0, w)]
+        return [_window_words_np(x, k - 32, 32, w),
+                _window_words_np(x, 32, 0, w)]
+
+    fw = words(c)
+    rc = [p[:, ::-1] for p in words(rev)]
+    bad = np.zeros((n, length + 1), np.int32)
+    np.cumsum(codes == _BAD_CODE, axis=1, out=bad[:, 1:])
+    valid = (bad[:, k:] - bad[:, :w]) == 0
+    if k <= 32:
+        return (np.minimum(fw[0], rc[0]),), valid
+    fw_le = (fw[0] < rc[0]) | ((fw[0] == rc[0]) & (fw[1] <= rc[1]))
+    return (tuple(np.where(fw_le, f, r) for f, r in zip(fw, rc)), valid)
+
+
+def unique_counts_np(planes, weights: np.ndarray):
+    """Group equal keys (planes most-significant first, flat) and sum
+    their weights: (sorted unique planes, counts int64)."""
+    if planes[0].size == 0:
+        return tuple(p[:0] for p in planes), np.zeros(0, np.int64)
+    order = (np.argsort(planes[0]) if len(planes) == 1
+             else np.lexsort(planes[::-1]))
+    s = [p[order] for p in planes]
+    change = np.zeros(s[0].size, dtype=bool)
+    change[0] = True
+    for p in s:
+        change[1:] |= p[1:] != p[:-1]
+    starts = np.flatnonzero(change)
+    counts = np.add.reduceat(weights[order].astype(np.int64), starts)
+    return tuple(p[starts] for p in s), counts
+
+
+def count_fastq_exact(path: str, k: int, max_reads: Optional[int] = None,
+                      chunk_reads: int = 100_000):
+    """Exact canonical k-mer counts (1 <= k <= 64) of a FASTQ file.
+
+    Returns (planes, counts): planes is (keys,) uint64 for k <= 32 or
+    (hi, lo) uint64 for k > 32, ascending by key; counts int64."""
+    if not 1 <= k <= 64:
+        raise ValueError(f"k={k} out of supported range [1, 64]")
+    n_words = 1 if k <= 32 else 2
+    total = tuple(np.zeros(0, np.uint64) for _ in range(n_words))
+    total_counts = np.zeros(0, np.int64)
+    for seqs in fastq_sequence_chunks(path, chunk_reads, max_reads):
+        by_len = {}
+        for s in seqs:
+            if len(s) >= k:
+                by_len.setdefault(len(s), []).append(s)
+        parts = [[] for _ in range(n_words)]
+        for length, group in by_len.items():
+            raw = np.frombuffer(b"".join(group), np.uint8)
+            codes = _CODE_LUT[raw].reshape(len(group), length)
+            planes, valid = canonical_kmers_np(codes, k)
+            for acc, p in zip(parts, planes):
+                acc.append(p[valid])
+        if not parts[0]:
+            continue
+        chunk = tuple(np.concatenate(acc) for acc in parts)
+        keys, counts = unique_counts_np(chunk, np.ones(chunk[0].size,
+                                                       np.int64))
+        total, total_counts = unique_counts_np(
+            tuple(np.concatenate([a, b]) for a, b in zip(total, keys)),
+            np.concatenate([total_counts, counts]))
+    return total, total_counts

@@ -2,7 +2,7 @@
 
 This is new scope vs the reference (SURVEY.md §5.8, §7): the reference is a
 k-mer *type* library; the counting pipeline demanded by BASELINE.json is
-built TPU-first here.
+built here.
 
 Design (static shapes, no data-dependent control flow):
   * canonical k-mer words arrive as (hi, lo) uint32 pairs + a validity mask
@@ -15,11 +15,10 @@ Design (static shapes, no data-dependent control flow):
     compacts the run-start lanes (with their start positions as payload)
     to the front, and each run's count is the DIFFERENCE OF CONSECUTIVE
     compacted start positions.  Everything is sorts, shifts, compares and
-    log-depth scans -- scatter-free AND gather-free: on TPU,
-    ``segment_sum``/``segment_min`` lower to scatters that measured 18 ms
-    per 1M lanes (11x the sort itself) and [n]->[n] gathers are little
-    better, while a 4-operand sort moves the same data in ~2.5 ms
-    (profiled on v5e, 2026-08; SURVEY.md §7 "hard parts").
+    log-depth scans -- scatter-free AND gather-free.  That choice was
+    made on an accelerator where scatters and gathers cost several times
+    a sort of the same lanes (SURVEY.md §7 "hard parts"); whether it still
+    pays on the GPU is an open measurement (ROADMAP C8).
 
 Everything returns fixed-capacity tables: ``keys[cap]``, ``counts[cap]``,
 ``n_unique`` (traced scalar); slots past n_unique are zero padding.
@@ -72,12 +71,10 @@ class UnitTable(NamedTuple):
     therefore reduces the consolidation's lane count by exactly zero; all
     that work was pure overhead ahead of a merge whose cost it never
     changed.  The information-theoretically minimal per-batch emission is
-    the raw canonical keys themselves, which is precisely what the fused
-    window kernel (kernels/window.pack_canonical_keys) already produces at
-    ~39 G keys/s -- so the per-batch "count" step disappears entirely, and
-    this 8 B/lane wrapper is its table form (no counts plane on HBM: the
-    weight of a live lane is definitionally 1 and the validity is the
-    folded flag bit)."""
+    the raw canonical keys themselves, so the per-batch "count" step
+    disappears entirely, and this 8 B/lane wrapper is its table form (no
+    counts plane in device memory: the weight of a live lane is
+    definitionally 1 and the validity is the folded flag bit)."""
 
     keys: U64
 
@@ -97,47 +94,6 @@ def unit_table(words: U64, valid: jnp.ndarray) -> UnitTable:
     return UnitTable(keys=U64(hi, words.lo & vmask))
 
 
-def _bitonic_eligible(n: int, n_extras: int) -> bool:
-    """Whether to dispatch to the Pallas bitonic sort: TPU backend, >= 512
-    lanes, no extra payload operands (bitonic is unstable; the 2-word key
-    is total, so key-only sorts are permutation-safe).  Non-power-of-two n
-    is padded to the next power of two with all-ones sentinel keys
-    (strictly greater than every real key incl. the folded invalid flag)
-    and sliced back.
-
-    OPT-IN (KMERS_TPU_BITONIC=1 via core.spec) until it beats XLA: the
-    loop-form kernel measures 7.3 ms per 1M-lane sort vs lax.sort's
-    1.55 ms on v5e -- Mosaic's dynamic-stride sublane rotates cost ~10x a
-    static roll, which buries the 10-vs-114 HBM-pass win (BASELINE.md,
-    2026-08).  The static-stride redesign is tracked in kernels/sort.py's
-    docstring."""
-    from ..core import spec as spec_mod
-
-    if not spec_mod.env_bitonic():
-        return False
-    if n_extras or n < 512:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        return False
-
-
-def _bitonic_sort_padded(key_hi: jnp.ndarray, key_lo: jnp.ndarray,
-                         interpret: bool = False):
-    """Flat u64 key sort via the Pallas bitonic kernel, any n >= 512."""
-    from ..kernels.sort import bitonic_sort_u64
-
-    n = key_hi.size
-    n_pad = 1 << (n - 1).bit_length()
-    if n_pad != n:
-        ones = jnp.full(n_pad - n, 0xFFFFFFFF, dtype=jnp.uint32)
-        key_hi = jnp.concatenate([key_hi, ones])
-        key_lo = jnp.concatenate([key_lo, ones])
-    s_hi, s_lo = bitonic_sort_u64(key_hi, key_lo, interpret=interpret)
-    return s_hi[:n], s_lo[:n]
-
-
 def sort_by_word(words: U64, valid: jnp.ndarray, *extras,
                  spare_hi_bit: bool = False):
     """Stable sort lanes by ((~valid), hi, lo).  Returns (words, valid,
@@ -150,21 +106,13 @@ def sort_by_word(words: U64, valid: jnp.ndarray, *extras,
     valid is reconstructed as lane < n_valid (invalid lanes all carry the
     flag bit, so they sort strictly last).  NOT safe for k = 32 (the all-T
     word uses bit 31): there the separate invalid key keeps u64::MAX
-    k-mers from aliasing padding (see module docstring).
-
-    On TPU, power-of-two payload-free spare-bit sorts dispatch to the
-    Pallas hierarchical bitonic kernel (kernels/sort.py) -- ~6 HBM passes
-    instead of XLA sort's ~114; output is byte-identical."""
+    k-mers from aliasing padding (see module docstring)."""
     if spare_hi_bit:
         flag = jnp.where(valid, jnp.uint32(0), jnp.uint32(1) << 31)
         key_hi = words.hi | flag
         n = words.lo.shape[-1]
-        if _bitonic_eligible(n, len(extras)):
-            out = _bitonic_sort_padded(key_hi.reshape(-1),
-                                       words.lo.reshape(-1))
-        else:
-            out = jax.lax.sort((key_hi, words.lo) + tuple(extras),
-                               num_keys=2, is_stable=True)
+        out = jax.lax.sort((key_hi, words.lo) + tuple(extras),
+                           num_keys=2, is_stable=True)
         v = jnp.arange(n, dtype=jnp.int32) < valid.sum(dtype=jnp.int32)
         return U64(out[0] & jnp.uint32(0x7FFFFFFF), out[1]), v, out[2:]
     invalid_key = (~valid).astype(jnp.uint32)
@@ -270,14 +218,10 @@ def count_words(words: U64, valid: jnp.ndarray,
     structurally-spare bit 31 of hi (see sort_by_word) -- same table,
     ~2x less sort traffic.  Leave None for unknown or k = 32 key spaces.
 
-    compact=False returns a run-length form: half the device cost (or
-    far less -- see below), same information; use when the table feeds a
-    merge rather than direct indexed reads.  On TPU with k <= 31 the
-    run-length form comes from the segment-local Pallas kernel
-    (count_words_segmented): no global sort at all, keys sorted per
-    VMEM-resident segment -- a different but equally mergeable layout."""
-    if not compact and _segmented_eligible(max_k):
-        return count_words_segmented(words, valid)
+    compact=False returns a run-length form (count_sorted_runs): keys
+    stay globally sorted with duplicates, counts sit at run starts -- no
+    compaction sort, same information; use when the table feeds a merge
+    rather than direct indexed reads."""
     flat = U64(words.hi.reshape(-1), words.lo.reshape(-1))
     s, v, _ = sort_by_word(flat, valid.reshape(-1),
                            spare_hi_bit=max_k is not None and max_k <= 31)
@@ -285,63 +229,6 @@ def count_words(words: U64, valid: jnp.ndarray,
         return count_sorted(s, v,
                             spare_hi_bit=max_k is not None and max_k <= 31)
     return count_sorted_runs(s, v)
-
-
-def _segmented_eligible(max_k: Optional[int]) -> bool:
-    """Whether count_words(compact=False) may use the segment-local Pallas
-    kernel: TPU backend, spare bit 31 available (k <= 31), not disabled.
-    The segmented table is a different (equally valid) run-length layout:
-    sorted per segment instead of globally -- exact after any merge, but
-    n_unique counts (segment, key) runs, which upper-bounds distinct
-    keys."""
-    from ..core import spec as spec_mod
-
-    if spec_mod.env_no_segment():
-        return False
-    if max_k is None or max_k > 31:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        return False
-
-
-def _seg_lanes_default() -> int:
-    """Segment size knob (KMERS_TPU_SEG_LANES via core.spec, default 64):
-    smaller segments cost fewer bitonic stages but more cross-segment
-    duplicate runs (free at merge time) -- tune per workload if needed."""
-    from ..core import spec as spec_mod
-
-    return spec_mod.env_seg_lanes()
-
-
-def count_words_segmented(words: U64, valid: jnp.ndarray,
-                          seg_lanes: Optional[int] = None,
-                          block_lanes: int = 1 << 14,
-                          interpret: bool = False) -> CountTable:
-    """Run-length count table WITHOUT any global sort (k <= 31 keys):
-    fold the invalid flag into bit 31, then kernels/count_tile sorts and
-    run-length-encodes each tile_lanes segment entirely in VMEM.  The
-    global lax.sort (1.55 ms / 1M lanes on v5e -- the round-2 counting
-    bottleneck) disappears; a key contributes one live lane per segment
-    it appears in, which the consolidation's weighted re-count
-    (merge_many) resolves exactly at unchanged cost (it already sorts
-    every pending lane).  Capacity of the result is n padded up to a
-    segment multiple; padding lanes are dead (count 0)."""
-    from ..kernels.count_tile import segment_count_keys
-
-    v = valid.reshape(-1)
-    # invalid lanes must be EXACTLY (0x80000000, 0): the kernel's run
-    # detection and validity recovery key on that bit pattern
-    key_hi = jnp.where(v, words.hi.reshape(-1), 0) | jnp.where(
-        v, jnp.uint32(0), jnp.uint32(1) << 31)
-    key_lo = jnp.where(v, words.lo.reshape(-1), 0)
-    kh, kl, counts = segment_count_keys(
-        key_hi, key_lo,
-        seg_lanes=seg_lanes if seg_lanes is not None else _seg_lanes_default(),
-        block_lanes=block_lanes, interpret=interpret)
-    n_unique = (counts > 0).sum(dtype=jnp.int32)
-    return CountTable(keys=U64(kh, kl), counts=counts, n_unique=n_unique)
 
 
 def count_weighted(words: U64, valid: jnp.ndarray, weights: jnp.ndarray,
@@ -421,55 +308,6 @@ def merge_many(tables, max_k: Optional[int] = None) -> CountTable:
     return count_weighted(keys, valid, counts, max_k=max_k)
 
 
-def merge_table_with_sorted_units(table: CountTable, sorted_units: U64,
-                                  interpret: bool = False) -> CountTable:
-    """Weighted merge of a compact key-sorted CountTable with PRE-SORTED
-    unit keys (the folded spare-bit layout, invalid lanes flagged and
-    sorted last) -- the streaming-consolidation fast path (k <= 31).
-
-    Equivalent to ``merge_many((table, UnitTable(sorted_units)))`` but
-    instead of two full lax.sorts of capacity + pending lanes it runs
-    two streaming Pallas passes (kernels/merge.py):
-
-      merge_sorted      merge-path merge of the two sorted sequences
-      compress_flagged  compaction of the run-start lanes
-
-    plus bandwidth-cheap scans (run starts, weight cumsum).  The result
-    table is bit-identical to the sort-based merge (capacity = the
-    padded merged length; keys sorted; zeros past n_unique)."""
-    from ..kernels import merge as kmerge
-
-    cap = table.capacity
-    idx = jnp.arange(cap, dtype=jnp.int32)
-    live = idx < table.n_unique
-    # dead table slots become MAX sentinels so A stays ascending with its
-    # dead tail last (flag bit set -> stripped as invalid downstream)
-    a_hi = jnp.where(live, table.keys.hi, jnp.uint32(0xFFFFFFFF))
-    a_lo = jnp.where(live, table.keys.lo, jnp.uint32(0xFFFFFFFF))
-    a_w = jnp.where(live, table.counts, 0).astype(jnp.uint32)
-    m_hi, m_lo, m_w = kmerge.merge_sorted(
-        a_hi, a_lo, a_w, sorted_units.hi.reshape(-1),
-        sorted_units.lo.reshape(-1), interpret=interpret)
-    n = m_hi.shape[0]
-    pos = jnp.arange(n, dtype=jnp.int32)
-    valid = (m_hi >> 31) == 0              # all valid lanes are first
-    prev_hi = jnp.concatenate([m_hi[:1] ^ jnp.uint32(1), m_hi[:-1]])
-    prev_lo = jnp.concatenate([m_lo[:1], m_lo[:-1]])
-    starts = valid & ((m_hi != prev_hi) | (m_lo != prev_lo))
-    mw = jnp.where(valid, m_w, 0).astype(jnp.uint32)
-    csum = jnp.cumsum(mw)
-    csum_excl = csum - mw
-    c_hi, c_lo, c_excl = kmerge.compress_flagged(
-        m_hi, m_lo, csum_excl, starts.astype(jnp.uint8),
-        interpret=interpret)
-    n_unique = starts.sum(dtype=jnp.int32)
-    live2 = pos < n_unique
-    counts = _counts_from_positions(c_excl, pos, n_unique,
-                                    csum[-1]).astype(jnp.int32)
-    keys = U64(jnp.where(live2, c_hi, 0), jnp.where(live2, c_lo, 0))
-    return CountTable(keys=keys, counts=counts, n_unique=n_unique)
-
-
 def empty_like_table(t):
     """An all-dead table with t's shapes (consolidation padding): zeros
     for count tables; for UnitTable every lane must carry the INVALID
@@ -486,89 +324,6 @@ def empty_like_table(t):
             U64(jnp.zeros_like(t.keys.lo.hi),
                 jnp.zeros_like(t.keys.lo.lo))))
     return jax.tree.map(jnp.zeros_like, t)
-
-
-def lookup_merge(table: CountTable, queries: U64,
-                 valid: Optional[jnp.ndarray] = None,
-                 interpret: bool = False) -> jnp.ndarray:
-    """Batch lookup by SORT-MERGE instead of per-query binary search
-    (k <= 31 keys: bit 31 must be structurally clear).
-
-    Why (round 5, measured): the binary search runs log2(cap) rounds of
-    random gathers per query -- 1M queries against a 2^20-capacity table
-    cost 479 ms on v5e (gathers price like scatters on TPU).  This path
-    is sorts + one streaming merge: sort queries (with their positions),
-    merge against the (already sorted) table with the source-index plane
-    exported, broadcast each key-run's table count to its query lanes
-    (the A-first tie rule puts the unique table lane AT the run start),
-    compress the query lanes out, and un-sort by position.  All
-    bandwidth-bound passes; ~30x the binary search at 1M queries.
-
-    Returns int32 counts aligned with `queries` (0 where absent).
-    `valid=False` lanes return 0 (their keys are routed to the sentinel
-    tail and never match)."""
-    from ..kernels import merge as kmerge
-
-    q_hi = queries.hi.reshape(-1)
-    q_lo = queries.lo.reshape(-1)
-    nq = q_hi.shape[0]
-    if valid is not None:
-        # invalid queries become (MAX, MAX-1): after every real canonical
-        # key (hi < 2^31) but strictly BEFORE the (MAX, MAX) pad/dead
-        # sentinel -- an invalid query keyed (MAX, MAX) would sort among
-        # the window-pad lanes and could be cut from the output tile,
-        # losing its answer slot (found by the invalid-lane test)
-        v = valid.reshape(-1)
-        q_hi = jnp.where(v, q_hi, jnp.uint32(0xFFFFFFFF))
-        q_lo = jnp.where(v, q_lo, jnp.uint32(0xFFFFFFFE))
-    pos = jnp.arange(nq, dtype=jnp.int32)
-    s_hi, s_lo, s_pos = jax.lax.sort((q_hi, q_lo, pos), num_keys=2,
-                                     is_stable=True)
-    cap = table.capacity
-    idx = jnp.arange(cap, dtype=jnp.int32)
-    live = idx < table.n_unique
-    a_hi = jnp.where(live, table.keys.hi, jnp.uint32(0xFFFFFFFF))
-    a_lo = jnp.where(live, table.keys.lo, jnp.uint32(0xFFFFFFFF))
-    a_w = jnp.where(live, table.counts, 0).astype(jnp.uint32)
-    m_hi, m_lo, m_w, m_idx = kmerge.merge_sorted(
-        a_hi, a_lo, a_w, s_hi, s_lo, interpret=interpret, with_idx=True)
-    n = m_hi.shape[0]
-    is_q = (m_idx >> 31) == 1
-    # run starts on the merged keys; the (unique-keyed) table lane of a
-    # run, if any, is exactly the run-start lane (A-first tie order)
-    prev_hi = jnp.concatenate([m_hi[:1] ^ jnp.uint32(1), m_hi[:-1]])
-    prev_lo = jnp.concatenate([m_lo[:1], m_lo[:-1]])
-    starts = (m_hi != prev_hi) | (m_lo != prev_lo)
-    start_val = jnp.where(starts & ~is_q, m_w, 0)
-    # broadcast each run-start value forward within its run: log-doubling
-    # "last start value at or before me" (carry (position, value) max)
-    p = jnp.arange(n, dtype=jnp.int32)
-    last_start = jnp.where(starts, p, -1)
-    val = start_val
-    s = 1
-    while s < n:
-        sh_pos = jnp.concatenate(
-            [jnp.full((s,), -1, last_start.dtype), last_start[:-s]])
-        sh_val = jnp.concatenate([jnp.zeros((s,), val.dtype), val[:-s]])
-        take = sh_pos > last_start
-        last_start = jnp.maximum(last_start, sh_pos)
-        val = jnp.where(take, sh_val, val)
-        s *= 2
-    # compress the query lanes out with their answers.  The first nq
-    # compressed entries are exactly the nq real queries in sorted-query
-    # rank order: B-side window-pad sentinels (the only other is_q lanes)
-    # carry ranks >= nq and live only in the output's tail pad, after
-    # every real lane.
-    _, _, c_val = kmerge.compress_flagged(
-        m_idx & jnp.uint32(0x7FFFFFFF), m_lo,
-        val, is_q.astype(jnp.uint8), interpret=interpret)
-    ans_rank = c_val[:nq]
-    # un-sort: answers are in sorted-query order (rank r <-> original
-    # position s_pos[r]); one 2-operand sort by position restores the
-    # original order -- no scatter
-    _, answers = jax.lax.sort(
-        (s_pos, ans_rank.astype(jnp.int32)), num_keys=1, is_stable=True)
-    return answers
 
 
 def lookup(table: CountTable, queries: U64) -> jnp.ndarray:
@@ -708,66 +463,14 @@ def _compact_wide(s: U128, starts: jnp.ndarray, idx: jnp.ndarray,
     return CountTableWide(keys=keys, counts=counts, n_unique=n_unique)
 
 
-def _segmented_eligible_wide(max_k: Optional[int]) -> bool:
-    """count_words_wide(compact=False) may use the wide segment-local
-    Pallas kernel when the spare bit exists (k <= 63) on a TPU backend."""
-    from ..core import spec as spec_mod
-
-    if spec_mod.env_no_segment():
-        return False
-    if max_k is None or max_k > 63:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        return False
-
-
-def count_words_segmented_wide(words: U128, valid: jnp.ndarray,
-                               seg_lanes: Optional[int] = None,
-                               block_lanes: int = 1 << 14,
-                               interpret: bool = False) -> CountTableWide:
-    """Run-length count table of 128-bit keys WITHOUT any global sort
-    (33 <= k <= 63): the 4-plane mirror of count_words_segmented -- fold
-    the invalid flag into bit 31 of hi.hi, segment-sort + run-length in
-    VMEM (kernels/count_tile.segment_count_keys_wide)."""
-    from ..kernels.count_tile import segment_count_keys_wide
-
-    v = valid.reshape(-1)
-    vmask = jnp.uint32(0) - v.astype(jnp.uint32)
-    hh = (words.hi.hi.reshape(-1) & vmask) | jnp.where(
-        v, jnp.uint32(0), jnp.uint32(UNIT_INVALID_HI))
-    hl = words.hi.lo.reshape(-1) & vmask
-    lh = words.lo.hi.reshape(-1) & vmask
-    ll = words.lo.lo.reshape(-1) & vmask
-    shh, shl, slh, sll, counts = segment_count_keys_wide(
-        hh, hl, lh, ll,
-        seg_lanes=seg_lanes if seg_lanes is not None else _seg_lanes_default(),
-        block_lanes=block_lanes, interpret=interpret)
-    n_unique = (counts > 0).sum(dtype=jnp.int32)
-    return CountTableWide(keys=U128(U64(shh, shl), U64(slh, sll)),
-                          counts=counts, n_unique=n_unique)
-
-
 def count_words_wide(words: U128, valid: jnp.ndarray,
                      max_k: Optional[int] = None,
                      compact: bool = True) -> CountTableWide:
     """Sort + count 128-bit keys: lexicographic sort then run-length
     counting (see sort_by_word_wide for the max_k <= 63 spare-bit trick).
 
-    compact=False returns the run-length form (see count_sorted_runs),
-    and -- LAYOUT NOTE (ADVICE r4) -- on a TPU backend with max_k <= 63
-    it comes from the wide segment-local Pallas kernel: keys are sorted
-    only WITHIN 64-lane segments, not globally (unlike count_sorted_runs'
-    globally sorted-with-duplicates layout), and n_unique counts
-    (segment, key) runs, which upper-bounds the distinct-key count.
-    Exact for every merge consumer (merge_many_wide re-counts), but do
-    not binary-search or assume global key order over a non-compact
-    table; set KMERS_TPU_NO_SEGMENT=1 or compact=True for globally
-    sorted keys.  This mirrors the narrow path's documented behavior
-    (count_words)."""
-    if not compact and _segmented_eligible_wide(max_k):
-        return count_words_segmented_wide(words, valid)
+    compact=False returns the run-length form (see count_sorted_runs):
+    globally sorted keys with duplicates, counts at run starts."""
     s, sv, _ = sort_by_word_wide(words, valid,
                                  spare_hi_bit=max_k is not None
                                  and max_k <= 63)
@@ -835,57 +538,6 @@ def merge_many_wide(tables, max_k: Optional[int] = None) -> CountTableWide:
 def merge_tables_wide(a: CountTableWide, b: CountTableWide,
                       max_k: Optional[int] = None) -> CountTableWide:
     return merge_many_wide([a, b], max_k=max_k)
-
-
-def merge_table_with_sorted_units_wide(table: CountTableWide,
-                                       sorted_units: U128,
-                                       interpret: bool = False
-                                       ) -> CountTableWide:
-    """merge_table_with_sorted_units for 128-bit keys (33 <= k <= 63):
-    the wide streaming-consolidation fast path.  sorted_units must be
-    ascending by (hi.hi, hi.lo, lo.hi, lo.lo) with the folded dead flag
-    (bit 31 of hi.hi) sorted last.  Bit-identical to
-    merge_many_wide((table, UnitTableWide(sorted_units)))."""
-    from ..kernels import merge as kmerge
-
-    cap = table.capacity
-    idx = jnp.arange(cap, dtype=jnp.int32)
-    live = idx < table.n_unique
-    maxu = jnp.uint32(0xFFFFFFFF)
-    mk = table.keys
-    a_keys = tuple(jnp.where(live, p, maxu)
-                   for p in (mk.hi.hi, mk.hi.lo, mk.lo.hi, mk.lo.lo))
-    a_w = jnp.where(live, table.counts, 0).astype(jnp.uint32)
-    b_keys = (sorted_units.hi.hi.reshape(-1),
-              sorted_units.hi.lo.reshape(-1),
-              sorted_units.lo.hi.reshape(-1),
-              sorted_units.lo.lo.reshape(-1))
-    m_keys, m_w = kmerge.merge_sorted_wide(a_keys, a_w, b_keys,
-                                           interpret=interpret)
-    k3, k2, k1, k0 = m_keys
-    n = k3.shape[0]
-    pos = jnp.arange(n, dtype=jnp.int32)
-    valid = (k3 >> 31) == 0
-    prev = [jnp.concatenate([p[:1] ^ jnp.uint32(i == 0), p[:-1]])
-            for i, p in enumerate(m_keys)]
-    starts = valid & ((k3 != prev[0]) | (k2 != prev[1])
-                      | (k1 != prev[2]) | (k0 != prev[3]))
-    mw = jnp.where(valid, m_w, 0).astype(jnp.uint32)
-    csum = jnp.cumsum(mw)
-    csum_excl = csum - mw
-    keep = starts.astype(jnp.uint8)
-    # two aligned compress passes over the same keep mask
-    c3, c2, c1 = kmerge.compress_flagged(k3, k2, k1, keep,
-                                         interpret=interpret)
-    c0, c_excl, _ = kmerge.compress_flagged(k0, csum_excl, k0, keep,
-                                            interpret=interpret)
-    n_unique = starts.sum(dtype=jnp.int32)
-    live2 = pos < n_unique
-    counts = _counts_from_positions(c_excl, pos, n_unique,
-                                    csum[-1]).astype(jnp.int32)
-    z = lambda x: jnp.where(live2, x, 0)
-    keys = U128(U64(z(c3), z(c2)), U64(z(c1), z(c0)))
-    return CountTableWide(keys=keys, counts=counts, n_unique=n_unique)
 
 
 def lookup_wide(table: CountTableWide, queries: U128) -> jnp.ndarray:

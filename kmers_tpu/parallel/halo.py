@@ -3,7 +3,7 @@
 SURVEY.md §5.7: the k-mer analog of context parallelism.  A long sequence is
 split into contiguous blocks, one per device along a mesh axis; k-mer
 windows that span a cut need the (k-1)-base prefix of the right neighbor's
-block.  One ``jax.lax.ppermute`` ships that prefix left over ICI -- no ring
+block.  One ``jax.lax.ppermute`` ships that prefix left between devices -- no ring
 attention / Ulysses-style machinery is needed: halo exchange is the entire
 communication pattern (and for minimizers the halo is still k-1 bases,
 since every w-mer of a k-mer lies inside the k-mer).

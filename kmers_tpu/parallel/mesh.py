@@ -1,7 +1,8 @@
 """Device mesh setup (SURVEY.md §5.8).
 
-The reference has no distributed code; this subsystem is designed TPU-first:
-``jax.sharding.Mesh`` + ``shard_map``, XLA collectives over ICI/DCN.
+The reference has no distributed code; this subsystem is built on
+``jax.sharding.Mesh`` + ``shard_map``, with XLA collectives between devices
+(NCCL over NVLink on a multi-GPU host).
 
 Mesh axes used by the framework:
   * ``"d"`` -- data/shard axis: reads are data-parallel over it, and the
@@ -55,8 +56,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Multi-host bring-up: jax.distributed.initialize (SURVEY.md §5.8).
 
-    On TPU pods arguments are auto-detected from the environment; pass them
-    explicitly for CPU multi-process simulation.  Call before any other JAX
+    Pass the coordinator address, process count and process id explicitly
+    (nothing in a plain GPU host or a CPU multi-process simulation tells
+    JAX of a cluster).  Call before any other JAX
     API.  After this, jax.devices() spans all hosts and make_mesh() builds
     a global mesh; each process feeds its local shard of every batch
     (process_index-based loading, see `local_read_slice`).

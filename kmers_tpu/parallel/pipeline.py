@@ -65,37 +65,6 @@ def _resolve_k(k, spec: Optional[KmerSpec]):
     return k
 
 
-def _folded_kernel_ok(reads: jnp.ndarray, k: int) -> bool:
-    """Whether the fused Pallas folded-key kernel can serve this unit-mode
-    batch: TPU backend, k <= 31, batch divisible into kernel blocks."""
-    if not (1 <= k <= 31) or reads.dtype != jnp.uint8:
-        return False
-    B = reads.shape[0]
-    if B % min(64, B) != 0:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        return False
-
-
-def _folded_packed_kernel_ok(words: jnp.ndarray, k: int) -> bool:
-    """Whether the fused packed-ingest Pallas kernel can serve this
-    unit-mode batch: TPU backend, k <= 31, L % 128 == 0 (the kernel's
-    unmasked-roll alignment constraint), batch divisible into blocks."""
-    if not (1 <= k <= 31) or words.dtype != jnp.uint32:
-        return False
-    B, NW = words.shape
-    if (NW * 16) % 128 != 0 or NW % 2 != 0:
-        return False
-    if B % min(256, B) != 0:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        return False
-
-
 def _count_metrics(n_reads: int, n_win: int, emitted) -> Dict[str, jnp.ndarray]:
     return {
         "reads": jnp.int32(n_reads),
@@ -120,27 +89,17 @@ def count_reads(reads: jnp.ndarray, k=None, compact: bool = True,
                    at all.  The streaming mode since round 4: the deferred
                    weighted consolidation sorts every pending lane
                    regardless (static shapes), so any per-batch aggregation
-                   is overhead -- see count.UnitTable.  On TPU this is one
-                   fused Pallas kernel (kernels/window.pack_canonical_keys)
-                   at ~39 G keys/s."""
+                   is overhead -- see count.UnitTable."""
     k = _resolve_k(k, spec)
     mode = _resolve_aggregate(compact, aggregate)
     n_win = reads.shape[-1] - k + 1
     if mode == "unit":
         assert 1 <= k <= 31, "unit tables need the spare flag bit (k <= 31)"
-        if _folded_kernel_ok(reads, k):
-            from ..kernels import window as kwin
-
-            kh, kl = kwin.pack_canonical_keys(reads, k)
-            table = count_ops.UnitTable(keys=U64(kh, kl))
-            emitted = ((kh >> 31) == 0).sum(dtype=jnp.int32)
-        else:
-            canon, valid = canonical_kmers(reads, k)
-            table = count_ops.unit_table(canon, valid)
-            emitted = valid.sum().astype(jnp.int32)
+        canon, valid = canonical_kmers(reads, k)
         return CountResult(
-            table=table,
-            metrics=_count_metrics(reads.shape[0], n_win, emitted))
+            table=count_ops.unit_table(canon, valid),
+            metrics=_count_metrics(reads.shape[0], n_win,
+                                   valid.sum().astype(jnp.int32)))
     canon, valid = canonical_kmers(reads, k)
     table = count_ops.count_words(canon, valid, max_k=k,
                                   compact=mode == "compact")
@@ -158,36 +117,18 @@ def count_reads_packed(words: jnp.ndarray, validbits: jnp.ndarray,
     [B, L/32] validity bitmaps from io.fastx.read_packed_batches): same
     table, ~2.7x less host->device traffic (the round-2 CLI was
     upload-bound with the device 4% busy).  See count_reads for
-    `aggregate` and `spec`; on TPU the unit form runs the fused Pallas
-    packed-ingest kernel (kernels/window.pack_canonical_keys_packed)."""
+    `aggregate` and `spec`."""
     k = _resolve_k(k, spec)
     mode = _resolve_aggregate(compact, aggregate)
-    n_win = words.shape[-1] * 16 - k + 1
-    if mode == "unit":
-        assert 1 <= k <= 31
-        if _folded_packed_kernel_ok(words, k):
-            # fused Pallas packed-ingest kernel: 0.5 B/lane input, folded
-            # keys out.  Output lanes are in the kernel's q-layout (a
-            # permutation of window positions) -- the unit table is an
-            # unordered multiset, so no un-permute is paid.
-            from ..kernels import window as kwin
-
-            kh, kl = kwin.pack_canonical_keys_packed(words, validbits, k)
-            table = count_ops.UnitTable(keys=U64(kh, kl))
-            emitted = ((kh >> 31) == 0).sum(dtype=jnp.int32)
-        else:
-            win = kmer_ops.kmer_windows_packed(words, validbits, k)
-            canon = kmer_ops.canonical_word(win.fw, win.rc)
-            table = count_ops.unit_table(canon, win.valid)
-            emitted = win.valid.sum().astype(jnp.int32)
-        return CountResult(
-            table=table,
-            metrics=_count_metrics(words.shape[0], n_win, emitted))
     win = kmer_ops.kmer_windows_packed(words, validbits, k)
     canon = kmer_ops.canonical_word(win.fw, win.rc)
     emitted = win.valid.sum().astype(jnp.int32)
-    table = count_ops.count_words(canon, win.valid, max_k=k,
-                                  compact=mode == "compact")
+    if mode == "unit":
+        assert 1 <= k <= 31
+        table = count_ops.unit_table(canon, win.valid)
+    else:
+        table = count_ops.count_words(canon, win.valid, max_k=k,
+                                      compact=mode == "compact")
     return CountResult(
         table=table,
         metrics=_count_metrics(words.shape[0], win.n_windows, emitted))
@@ -347,19 +288,6 @@ def canonical_kmers_wide(reads: jnp.ndarray, k: int):
     return kmer_ops.canonical_word_wide(win.fw, win.rc), win.valid
 
 
-def _folded_wide_kernel_ok(reads: jnp.ndarray, k: int) -> bool:
-    """Whether the fused wide folded-key Pallas kernel can serve this
-    unit-mode batch: TPU backend, 33 <= k <= 63, blocks divide the batch."""
-    if not (33 <= k <= 63) or reads.dtype != jnp.uint8:
-        return False
-    if reads.shape[0] % min(128, reads.shape[0]) != 0:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        return False
-
-
 def count_reads_wide(reads: jnp.ndarray, k=None, compact: bool = True,
                      aggregate: Optional[str] = None,
                      spec: Optional[KmerSpec] = None) -> CountResult:
@@ -371,22 +299,11 @@ def count_reads_wide(reads: jnp.ndarray, k=None, compact: bool = True,
     n_win = reads.shape[-1] - k + 1
     if mode == "unit":
         assert 33 <= k <= 63
-        if _folded_wide_kernel_ok(reads, k):
-            # fused Pallas wide folded-key kernel: 16 B/lane out, flag in
-            # bit 31 of the top lane = UnitTableWide's exact layout
-            from ..kernels import window_wide as kww
-
-            k3, k2, k1, k0 = kww.pack_canonical_keys_wide(reads, k)
-            table = count_ops.UnitTableWide(
-                keys=U128(U64(k3, k2), U64(k1, k0)))
-            emitted = ((k3 >> 31) == 0).sum(dtype=jnp.int32)
-        else:
-            canon, valid = canonical_kmers_wide(reads, k)
-            table = count_ops.unit_table_wide(canon, valid)
-            emitted = valid.sum().astype(jnp.int32)
+        canon, valid = canonical_kmers_wide(reads, k)
         return CountResult(
-            table=table,
-            metrics=_count_metrics(reads.shape[0], n_win, emitted))
+            table=count_ops.unit_table_wide(canon, valid),
+            metrics=_count_metrics(reads.shape[0], n_win,
+                                   valid.sum().astype(jnp.int32)))
     canon, valid = canonical_kmers_wide(reads, k)
     emitted = valid.sum().astype(jnp.int32)
     table = count_ops.count_words_wide(canon, valid, max_k=k,
@@ -513,7 +430,7 @@ def make_sequence_parallel_counter(mesh: Mesh, k: int, *, route_capacity: int,
 
     Input: [G] uint8 ASCII, G divisible by the axis size; each device holds
     a contiguous block and fetches a (k-1)-base halo from its right
-    neighbor over ICI before windowing.  Windows spanning the global end
+    neighbor (ppermute) before windowing.  Windows spanning the global end
     are masked via the invalid-byte machinery (halo.py).
     """
     wide = k > 32
@@ -662,30 +579,11 @@ def emit_superkmers(reads_local: jnp.ndarray, k: int, w: int, seed: int):
     """
     assert 1 <= w <= min(k, 31) and k <= 31
     B, L = reads_local.shape
-    # minimizer selection under the mix16 packed order (round 5; which
-    # w-mer wins changes run boundaries, never the counted table --
-    # every occurrence of a k-mer still routes to one owner).  On TPU the
-    # gather-free Pallas kernel does the selection (the jnp path's
-    # winning-w-mer gather was the emission bottleneck: 27 -> 37.6 M
-    # kmers/s before this switch; mix32 -> mix16 then lifted the kernel
-    # 13.0 -> 16.0 G kmers/s).
-    use_kernel = False
-    try:
-        use_kernel = (jax.default_backend() == "tpu"
-                      and B % min(64, B) == 0 and L <= 4096)
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        pass
-    if use_kernel:
-        from ..kernels import minimizer as kmini
-
-        wh, wl, mpos, v8 = kmini.minimizer_kernel(reads_local, k, w,
-                                                  seed=seed, order="mix16")
-        mm = mini_ops.MappedMinimizers(word=U64(wh, wl), pos=mpos,
-                                       valid=v8.astype(bool),
-                                       n_kmers=L - k + 1)
-    else:
-        mm = mini_ops.minimizer_stream(reads_local, k, w,
-                                       hash_ops.mix16_hash_fn(seed))
+    # minimizer selection under the mix16 packed order (which w-mer wins
+    # changes run boundaries, never the counted table -- every occurrence
+    # of a k-mer still routes to one owner)
+    mm = mini_ops.minimizer_stream(reads_local, k, w,
+                                   hash_ops.mix16_hash_fn(seed))
     codes = enc_ops.ascii_to_codes(reads_local)
     w16 = kmer_ops.pack_u32_words(codes)
     col = jnp.broadcast_to(jnp.arange(L, dtype=jnp.int32)[None, :], (B, L))
@@ -756,63 +654,6 @@ def expand_superkmers(planes, valid: jnp.ndarray, k: int, w: int):
     return fw, wv
 
 
-def _superkmer_prefilter_mode() -> str:
-    """"on" (TPU), "interpret" (KMERS_TPU_SK_PREFILTER=interpret -- CPU
-    test lane), or "off" (other backends / KMERS_TPU_SK_PREFILTER=0)."""
-    import os
-
-    env = os.environ.get("KMERS_TPU_SK_PREFILTER", "")
-    if env == "0":
-        return "off"
-    if env == "interpret":
-        return "interpret"
-    try:
-        return "on" if jax.default_backend() == "tpu" else "off"
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        return "off"
-
-
-def _prefilter_superkmers(owner: U64, start: jnp.ndarray, planes,
-                          budget: int, meta_off: Optional[int],
-                          n_planes: int, interpret: bool = False):
-    """Compact super-k-mer start lanes to the front and truncate to the
-    deliverable `budget` (streaming compress passes; kernels/merge.py).
-
-    Returns (owner', valid', planes', dropped_weight): lanes beyond the
-    budget are dropped and their k-mer mass (the meta window count)
-    summed into dropped_weight -- counted, never silent.  compress runs
-    in chunks of 3 planes over the SAME keep mask, so the chunked
-    outputs stay lane-aligned."""
-    from ..kernels import merge as kmerge
-
-    keep = start.reshape(-1).astype(jnp.uint8)
-    flat = [owner.hi.reshape(-1), owner.lo.reshape(-1)] + [
-        p.reshape(-1) for p in planes]
-    zeros = jnp.zeros_like(flat[0])
-    outs = []
-    for i in range(0, len(flat), 3):
-        chunk = flat[i:i + 3]
-        while len(chunk) < 3:
-            chunk = chunk + [zeros]
-        outs.extend(kmerge.compress_flagged(*chunk, keep,
-                                            interpret=interpret))
-    outs = outs[:len(flat)]
-    n_start = start.reshape(-1).sum(dtype=jnp.int32)
-    n_cap = min(budget, outs[0].shape[0])
-    pos = jnp.arange(outs[0].shape[0], dtype=jnp.int32)
-    # meta (k-mers per super-k-mer) of the dropped tail, from the last
-    # payload plane (folded layout) or the separate meta plane
-    meta_plane = outs[2 + n_planes - 1]
-    meta = ((meta_plane >> meta_off) & jnp.uint32(31)) if meta_off is not None \
-        else meta_plane
-    dropped_w = jnp.where((pos >= n_cap) & (pos < n_start),
-                          meta.astype(jnp.int32), 0).sum(dtype=jnp.int32)
-    valid = pos[:n_cap] < jnp.minimum(n_start, n_cap)
-    owner2 = U64(outs[0][:n_cap], outs[1][:n_cap])
-    planes2 = tuple(o[:n_cap] for o in outs[2:2 + n_planes])
-    return owner2, valid, planes2, dropped_w
-
-
 def make_superkmer_counter(mesh: Mesh, k: int, w: int, *,
                            route_capacity: int, seed: int = 0,
                            axis: str = "d", route_passes: int = 1,
@@ -849,27 +690,11 @@ def make_superkmer_counter(mesh: Mesh, k: int, w: int, *,
                                   "route_overflow", "route_rerouted",
                                   "route_bytes")},
     )
-    n_dev = mesh.shape[axis]
-    prefilter = _superkmer_prefilter_mode()
 
     def body(reads_local):
         owner, start, planes, kmers = emit_superkmers(reads_local, k, w,
                                                       seed)
         n_superkmers = start.sum().astype(jnp.int32)
-        cap_dropped_w = jnp.int32(0)
-        if prefilter != "off":
-            # Compress-prefilter (round 5): super-k-mer lanes are sparse
-            # (~1 start per (k-w+2)/2 windows) but the owner sort pays
-            # for EVERY lane x (2 + n_planes) operands -- the measured
-            # partition floor.  Compact the start lanes (streaming
-            # compress passes) and hand the sort only the deliverable
-            # budget passes * D * capacity; lanes beyond it could not
-            # all fit the send buffers anyway and are counted
-            # meta-weighted like per-destination overflow.
-            owner, start, planes, cap_dropped_w = _prefilter_superkmers(
-                owner, start, planes, route_passes * n_dev * route_capacity,
-                meta_off if fold else None, n_planes,
-                interpret=prefilter == "interpret")
         routed = route_ops.route_payload(
             owner, start, planes, axis, route_capacity, seed,
             passes=route_passes, weight_plane=n_planes - 1,
@@ -890,9 +715,8 @@ def make_superkmer_counter(mesh: Mesh, k: int, w: int, *,
                 jnp.int32(reads_local.shape[0] * n_win) - kmers, axis),
             "superkmers": jax.lax.psum(n_superkmers, axis),
             # overflow in K-MERS (meta-weighted): comparable to the
-            # per-k-mer pipelines' counter; includes prefilter-cap drops
-            "route_overflow": jax.lax.psum(
-                routed.overflow_weight + cap_dropped_w, axis),
+            # per-k-mer pipelines' counter
+            "route_overflow": jax.lax.psum(routed.overflow_weight, axis),
             "route_rerouted": jax.lax.psum(routed.rerouted, axis),
             "route_bytes": jax.lax.psum(
                 jnp.int32(routed.valid.size * (4 * n_planes + 1)),
@@ -901,30 +725,14 @@ def make_superkmer_counter(mesh: Mesh, k: int, w: int, *,
         return CountResult(table=jax.tree.map(lambda x: x[None], table),
                            metrics=metrics)
 
-    # check_vma=False: the emission path runs a Pallas kernel on TPU, and
-    # pallas_call outputs carry no vma annotation for shard_map's checker
-    fn = shard_map(body, mesh=mesh, in_specs=(P(axis),),
-                   out_specs=out_spec, check_vma=False)
+    fn = shard_map(body, mesh=mesh, in_specs=(P(axis),), out_specs=out_spec)
     return jax.jit(fn)
 
 
 # -- distributed lookup service (query serving over shard tables) --------------
 
-def _lookup_merge_ok(max_k: Optional[int]) -> bool:
-    """Whether the merge-based lookup can serve (TPU backend, spare bit
-    31 free: k <= 31 keys)."""
-    if max_k is None or max_k > 31:
-        return False
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        return False
-
-
 def make_sharded_lookup(mesh: Mesh, *, query_capacity: int, seed: int = 0,
-                        axis: str = "d", max_k: Optional[int] = None,
-                        merge_lookup: Optional[bool] = None,
-                        interpret: bool = False):
+                        axis: str = "d"):
     """Build a jitted query step over per-shard count tables.
 
     fn(tables, query_hi, query_lo, query_valid) -> counts int32, aligned
@@ -933,17 +741,12 @@ def make_sharded_lookup(mesh: Mesh, *, query_capacity: int, seed: int = 0,
     (as returned by make_sharded_counter), sharded over `axis`; queries
     sharded over `axis` on dim 0.
 
-    The owning shard answers its received queries either by merge-based
-    batch lookup (count.lookup_merge -- default on TPU when max_k <= 31;
-    the measured-fast form: the per-query binary search's log2(cap)
-    gather rounds cost 479 ms per 1M queries on v5e) or by the
-    branch-free binary search (fallback); answers ride the inverse
-    all_to_all home scatter-free (route_queries.reply round 5).
+    The owning shard answers its received queries by the branch-free
+    binary search (count.lookup); answers ride the inverse all_to_all
+    home scatter-free (route_queries.reply).
     """
     table_spec = CountTable(keys=U64(P(axis), P(axis)), counts=P(axis),
                             n_unique=P(axis))
-    use_merge = (merge_lookup if merge_lookup is not None
-                 else _lookup_merge_ok(max_k))
 
     def body(tables, q_hi, q_lo, q_valid):
         shard = CountTable(
@@ -952,13 +755,7 @@ def make_sharded_lookup(mesh: Mesh, *, query_capacity: int, seed: int = 0,
         recv, recv_valid, reply, overflow = route_ops.route_queries(
             U64(q_hi.reshape(-1), q_lo.reshape(-1)), q_valid.reshape(-1),
             axis, query_capacity, seed)
-        if use_merge:
-            answers = count_ops.lookup_merge(
-                shard, recv, valid=recv_valid,
-                interpret=interpret).reshape(recv_valid.shape)
-        else:
-            answers = count_ops.lookup(shard, recv).reshape(
-                recv_valid.shape)
+        answers = count_ops.lookup(shard, recv).reshape(recv_valid.shape)
         answers = jnp.where(recv_valid, answers, -1)
         counts = reply(answers)
         return counts.reshape(q_hi.shape), jax.lax.psum(overflow, axis)
@@ -966,5 +763,5 @@ def make_sharded_lookup(mesh: Mesh, *, query_capacity: int, seed: int = 0,
     fn = shard_map(
         body, mesh=mesh,
         in_specs=(table_spec, P(axis), P(axis), P(axis)),
-        out_specs=(P(axis), P()), check_vma=not use_merge)
+        out_specs=(P(axis), P()))
     return jax.jit(fn)

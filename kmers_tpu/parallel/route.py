@@ -25,10 +25,11 @@ P*C are dropped AND counted in ``overflow``; lanes delivered by passes
 >= 2 are counted in ``rerouted``.
 
 All steps are sort/slice/compare lane ops -- no scatter, no gather, no
-dynamic shapes (the round-3 send-buffer gather measured ~19x slower than
-the slice form on v5e: 29 -> 564 M kmers/s device cost for the whole
-hash-partition step, BASELINE.md round 4).  Overflow counters come back with the result; callers must surface
-them (metrics counters ``route_overflow`` / ``route_rerouted``).
+dynamic shapes.  (The slice form replaced a send-buffer gather on an
+accelerator where gathers were slow; whether histogram + scatter is
+cheaper on the GPU is an open measurement, ROADMAP A6.)  Overflow
+counters come back with the result; callers must surface them (metrics
+counters ``route_overflow`` / ``route_rerouted``).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def owner_of(words: U64, n_shards: int, seed: int = 0) -> jnp.ndarray:
     range-partition property on the mixed space.
     """
     h = u.feistel_mix(words, seed)
-    # 32-bit-only multiply-shift (Pallas/TPU-safe, no u64 multiply)
+    # 32-bit-only multiply-shift (no u64 multiply)
     return _mul_shift32(h.hi, n_shards)
 
 
@@ -81,8 +82,8 @@ def _owner_histogram(owner_sorted: jnp.ndarray, n_shards: int) -> jnp.ndarray:
     """Per-owner lane counts [n_shards] from an owner-SORTED lane array:
     bucket extents by binary search (searchsorted), counts by difference.
 
-    Scatter-free on purpose (segment_sum lowers to a TPU scatter that
-    measured ~18 ms per 1M lanes), and log-depth in the lane count: D+1
+    Scatter-free on purpose (segment_sum lowers to a scatter), and
+    log-depth in the lane count: D+1
     binary searches of log2(n) gathers each, so pod-scale D (256 shards x
     1M lanes) costs ~5K gathers, not D full compare-reduce passes."""
     bounds = jnp.searchsorted(owner_sorted,
@@ -146,8 +147,8 @@ def _bucket_slices(arrs, starts: jnp.ndarray, capacity: int,
     """GATHER-FREE [D, capacity] send buffers: each destination's bucket
     is a CONTIGUOUS range of the owner-sorted lanes, so a per-destination
     ``dynamic_slice`` replaces the [D, C] gather the round-3 design used
-    -- TPU gathers of N lanes cost close to a scatter (~18 ms/M lanes
-    profiled) while a contiguous slice is pure bandwidth.  Arrays are
+    -- a gather of N lanes costs random reads while a contiguous slice
+    is pure bandwidth.  Arrays are
     padded by max_offset + capacity zeros so no slice ever clamps (a
     clamped start would shift real bucket lanes under the in_bucket
     mask).
@@ -430,9 +431,9 @@ def route_queries(words: U64, valid: jnp.ndarray, axis_name: str,
         """answers [D, C] int32 on the owner -> [n] at the original sender
         lane positions (-1 where unanswered).
 
-        Scatter-free (round 5): delivery is one 2-operand sort by the
-        original position -- TPU scatters measured ~11x a sort
-        (count.py module docstring).  Dropped/overflowed lanes carry the
+        Scatter-free: delivery is one 2-operand sort by the original
+        position (count.py module docstring).  Dropped/overflowed lanes
+        carry the
         position sentinel n and sort last; positions < n are unique, so
         after the sort lane i holds EITHER its answer (if answered) or a
         later lane's... no: every answered position appears exactly once

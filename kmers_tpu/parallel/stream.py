@@ -3,8 +3,8 @@
 Real datasets do not fit one device call; this module folds a stream of
 [B, L] batches into a fixed-capacity device count table:
 
-  per batch:    UNIT emission -- the fused window kernel's raw folded
-                canonical keys wrapped as a count.UnitTable.  No per-batch
+  per batch:    UNIT emission -- the raw folded canonical keys of the
+                batch's windows wrapped as a count.UnitTable.  No per-batch
                 sort or run-length pass AT ALL: the consolidation below
                 sorts every pending lane regardless (static shapes), so
                 any per-batch aggregation is pure overhead -- the rounds
@@ -62,59 +62,6 @@ def _merge_bounded(table: CountTable, pending: tuple, capacity: int,
                    max_k=None):
     merged = count_ops.merge_many((table,) + tuple(pending), max_k=max_k)
     return _bound_table(merged, capacity)
-
-
-@functools.partial(jax.jit, static_argnames=("capacity", "interpret"))
-def _merge_bounded_streaming(table: CountTable, pending: tuple,
-                             capacity: int, interpret: bool = False):
-    """_merge_bounded for the TPU streaming fast path (k <= 31, unit
-    pendings): ONE 2-operand sort of the pending lanes + two Pallas
-    streaming passes (kernels/merge.py) instead of two full sorts of
-    capacity + pending lanes.  Bit-identical table to _merge_bounded
-    (tests pin it); the consolidation drops from ~230 ms to the pending
-    sort's cost."""
-    hi = jnp.concatenate([t.keys.hi.reshape(-1) for t in pending])
-    lo = jnp.concatenate([t.keys.lo.reshape(-1) for t in pending])
-    # the folded flag bit sorts invalid lanes last; equal keys are
-    # interchangeable (unit weight), so stability is not needed
-    s_hi, s_lo = jax.lax.sort((hi, lo), num_keys=2, is_stable=False)
-    merged = count_ops.merge_table_with_sorted_units(
-        table, U64(s_hi, s_lo), interpret=interpret)
-    return _bound_table(merged, capacity)
-
-
-@functools.partial(jax.jit, static_argnames=("capacity", "interpret"))
-def _merge_bounded_streaming_wide(table: CountTableWide, pending: tuple,
-                                  capacity: int, interpret: bool = False):
-    """_merge_bounded_streaming for 128-bit keys (33 <= k <= 63, unit
-    pendings): one 4-operand pending sort + the wide Pallas merge and
-    compress passes."""
-    hh = jnp.concatenate([t.keys.hi.hi.reshape(-1) for t in pending])
-    hl = jnp.concatenate([t.keys.hi.lo.reshape(-1) for t in pending])
-    lh = jnp.concatenate([t.keys.lo.hi.reshape(-1) for t in pending])
-    ll = jnp.concatenate([t.keys.lo.lo.reshape(-1) for t in pending])
-    s = jax.lax.sort((hh, hl, lh, ll), num_keys=4, is_stable=False)
-    merged = count_ops.merge_table_with_sorted_units_wide(
-        table, U128(U64(s[0], s[1]), U64(s[2], s[3])),
-        interpret=interpret)
-    return _bound_table_wide(merged, capacity)
-
-
-def _stream_merge_mode() -> str:
-    """Dispatch mode of the streaming consolidation fast path:
-    "on" (TPU backend), "off" (other backends, or KMERS_TPU_STREAM_MERGE=0
-    to force the sort-based reference path for A/B checks), or
-    "interpret" (KMERS_TPU_STREAM_MERGE=interpret: run the Pallas passes
-    in interpret mode -- CPU test lane)."""
-    env = os.environ.get("KMERS_TPU_STREAM_MERGE", "")
-    if env == "0":
-        return "off"
-    if env == "interpret":
-        return "interpret"
-    try:
-        return "on" if jax.default_backend() == "tpu" else "off"
-    except RuntimeError:  # pragma: no cover - no backend at trace time
-        return "off"
 
 
 def _bound_table(merged: CountTable, capacity: int):
@@ -236,9 +183,8 @@ class StreamingCounter:
         from ..core.spec import KmerSpec
 
         # `k` may be an int or a KmerSpec -- the framework's one config
-        # carrier (core/spec.py); the spec's frozen env knobs and seed
-        # ride along to the pipelines.
-        self.spec = k if isinstance(k, KmerSpec) else KmerSpec.from_env(k)
+        # carrier (core/spec.py); its seed and minimizer width ride along.
+        self.spec = k if isinstance(k, KmerSpec) else KmerSpec(k)
         k = self.spec.k
         if not (1 <= k <= 64):
             raise ValueError("StreamingCounter supports 1 <= k <= 64")
@@ -285,9 +231,9 @@ class StreamingCounter:
         `merge_every` batches are pending (or the table is read).
 
         No device sync happens here: fetching even one scalar per batch
-        would serialize the stream on the host<->device round trip (over a
-        network-tunneled TPU that is the dominant cost).  Metric scalars
-        accumulate on device and are fetched at consolidation time."""
+        would serialize the stream on the host<->device round trip.
+        Metric scalars accumulate on device and are fetched at
+        consolidation time."""
         res = self._count(jnp.asarray(reads))
         self._absorb(res)
 
@@ -311,32 +257,14 @@ class StreamingCounter:
         pending = list(self._pending)
         # pad to merge_every with empty same-shaped tables so every
         # consolidation compiles to ONE executable (a partial final merge
-        # would otherwise cost a fresh multi-minute XLA compile on remote-
-        # compile relays)
+        # would otherwise cost a fresh XLA compile)
         caps = {t.capacity for t in pending}
         if len(caps) == 1 and len(pending) < self.merge_every:
             empty = count_ops.empty_like_table(pending[0])
             pending += [empty] * (self.merge_every - len(pending))
-        mode = _stream_merge_mode()
-        if (mode != "off" and not self.wide
-                and all(isinstance(t, count_ops.UnitTable)
-                        for t in pending)):
-            # TPU streaming fast path (round 5): one 2-operand pending
-            # sort + Pallas merge/compress passes -- bit-identical table,
-            # ~2.5x cheaper than the sort-based consolidation
-            new_table, du, dk = _merge_bounded_streaming(
-                self.table, tuple(pending), self.capacity,
-                interpret=mode == "interpret")
-        elif (mode != "off" and self.wide
-              and all(isinstance(t, count_ops.UnitTableWide)
-                      for t in pending)):
-            new_table, du, dk = _merge_bounded_streaming_wide(
-                self.table, tuple(pending), self.capacity,
-                interpret=mode == "interpret")
-        else:
-            merge = _merge_bounded_wide if self.wide else _merge_bounded
-            new_table, du, dk = merge(
-                self.table, tuple(pending), self.capacity, max_k=self.k)
+        merge = _merge_bounded_wide if self.wide else _merge_bounded
+        new_table, du, dk = merge(
+            self.table, tuple(pending), self.capacity, max_k=self.k)
         # Commit state ATOMICALLY only after the merge demonstrably
         # completed: the scalar fetches below force the executable, so a
         # device fault (the elastic-recovery case) raises BEFORE any

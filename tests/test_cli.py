@@ -78,7 +78,7 @@ def test_cli_help_states_exactness_contract(capsys):
     assert e.value.code == 0
     out = capsys.readouterr().out
     assert "exactness contract" in out
-    assert "KMERS_TPU_SEG_LANES" in out        # env knobs documented
+    assert "environment knobs" not in out      # no tuning knobs left
     assert "lower bounds" in out
 
 

@@ -105,8 +105,8 @@ def test_hash_one_compat():
 
 # -- checked-in golden fixtures (format-spec-derived bytes) -------------------
 #
-# No Rust toolchain exists here to run the reference crate itself
-# (BASELINE.md); these binaries were derived by hand from the simple-sds
+# No Rust toolchain is available to run the reference crate itself;
+# these binaries were derived by hand from the simple-sds
 # serialization format and the reference's 2-bit LSB-first packing and
 # checked in, so any drift in our serializer breaks against PINNED bytes,
 # not against code that could drift with it.

@@ -2,7 +2,7 @@
 
 Every fixture below is ported from the reference's in-module test suites
 (file:line citations inline); the oracle must reproduce them exactly before
-any batched/TPU op is built against it.
+any batched device op is built against it.
 """
 
 import random

@@ -262,18 +262,19 @@ def test_sharded_route_overflow_is_counted():
     assert total + sc.route_overflow == want_total
 
 
-def test_kmerspec_is_the_config_carrier(monkeypatch):
-    """VERDICT r4 item 8: KmerSpec carries (k, w, seed) + the env knobs
-    and is accepted by count_reads* and the counters."""
+def test_kmerspec_is_the_config_carrier():
+    """VERDICT r4 item 8: KmerSpec carries (k, w, seed) -- and nothing
+    else: no environment knob feeds the configuration -- and is accepted
+    by count_reads* and the counters."""
+    import dataclasses
+
     from kmers_tpu import KmerSpec
     from kmers_tpu.parallel import pipeline
 
-    monkeypatch.setenv("KMERS_TPU_SEG_LANES", "128")
-    monkeypatch.setenv("KMERS_TPU_NO_SEGMENT", "1")
-    spec = KmerSpec.from_env(21, w=7, seed=9)
-    assert spec.seg_lanes == 128
-    assert not spec.segment_kernel
-    assert not spec.bitonic_sort
+    spec = KmerSpec(21, w=7, seed=9)
+    assert [f.name for f in dataclasses.fields(KmerSpec)] == ["k", "w",
+                                                              "seed"]
+    assert not hasattr(KmerSpec, "from_env")
     assert spec.aggregate == "unit" and not spec.wide
     _, arr = make_batch(4, 60)
     via_spec = pipeline.count_reads(arr, spec)
@@ -289,9 +290,9 @@ def test_kmerspec_is_the_config_carrier(monkeypatch):
     sc.update(arr)
     assert sc.to_pairs() == oracle_counts(reads, 21)
     # wide + k=32 fallbacks keep their aggregate forms
-    assert KmerSpec.from_env(32).aggregate == "runlength"
-    assert KmerSpec.from_env(63).aggregate == "unit"
-    assert KmerSpec.from_env(33).wide
+    assert KmerSpec(32).aggregate == "runlength"
+    assert KmerSpec(63).aggregate == "unit"
+    assert KmerSpec(33).wide
 
 
 def test_sharded_counter_takes_spec_seed():
@@ -302,7 +303,7 @@ def test_sharded_counter_takes_spec_seed():
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
-    spec = KmerSpec.from_env(15, w=7, seed=3)
+    spec = KmerSpec(15, w=7, seed=3)
     sc = ShardedStreamingCounter(spec, capacity=4096, n_devices=8,
                                  route_capacity=256, merge_every=1)
     reads, arr = make_batch(8, 64)

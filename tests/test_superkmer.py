@@ -177,11 +177,11 @@ def test_sharded_streaming_counter_minimizer_partition():
 
 
 @pytest.mark.parametrize("aggregate", ["unit", "compact"])
-def test_superkmer_prefilter_table_bit_exact(monkeypatch, aggregate):
-    """Round-5 compress-prefilter (the owner sort sees only the
-    deliverable budget): same global table as the unfiltered path when
-    nothing is dropped."""
-    monkeypatch.setenv("KMERS_TPU_SK_PREFILTER", "interpret")
+def test_superkmer_prefilter_table_bit_exact(aggregate):
+    """Super-k-mer counting with the route budget passes=2 (the owner
+    sort sees every emitted lane; no compaction step runs before it):
+    same global table as single-device counting when nothing is
+    dropped, in both per-shard table forms."""
     k, w = 21, 7
     rows = genome_reads(64, 64)
     m = mesh_ops.make_mesh(8)
@@ -203,11 +203,10 @@ def test_superkmer_prefilter_table_bit_exact(monkeypatch, aggregate):
                                   np.asarray(want.counts)[:nu])
 
 
-def test_superkmer_prefilter_cap_drops_counted(monkeypatch):
-    """When the prefilter budget truncates, the dropped k-mer mass is
+def test_superkmer_prefilter_cap_drops_counted():
+    """When the route budget truncates, the dropped k-mer mass is
     meta-weighted into route_overflow: table mass + overflow == emitted
     still holds exactly."""
-    monkeypatch.setenv("KMERS_TPU_SK_PREFILTER", "interpret")
     k, w = 21, 7
     rows = genome_reads(64, 64)
     m = mesh_ops.make_mesh(8)
